@@ -1,66 +1,103 @@
-"""Headline benchmark: batched Solo12 trot MPC solves/s on one TPU chip.
+"""Headline benchmark: batched Solo12 trot MPC solves/s on one GPU.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", ...}.
+Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", ...}, with
+the device it ran on (JAX's platform and device kind, the card's name and
+power limit from nvidia-smi). It fails when JAX finds no GPU.
 
 Baseline: the reference BiConMP solves ONE MPC at a time inside a 50 ms
 replanning budget on a desktop CPU, i.e. ~20 solves/s per process
 (reference simulation.py:44, BASELINE.md). ``vs_baseline`` reports our
-batched solves/s against that 20/s figure. The north-star target in
-BASELINE.json is >= 1000 solves/s per host.
+batched solves/s against that 20/s figure.
 
-Measurement protocol (hardened in round 4 after BENCH_r03.json recorded an
-anomalous 570 solves/s on a tree that measures 8000+):
+Measurement protocol:
 
-* SINGLE-OWNER TPU REQUIRED. The chip must not be shared with another
-  process while this runs; a contended chip silently serializes and can
-  degrade the measurement 10x+ with no error. Check that nothing else is
-  using the device before trusting a number from this script.
-* Per-rep wall times are measured individually and reported (``rep_times``),
-  along with their min/max spread ratio (``rep_spread``).
+* One process owns the card. A second JAX process on the same card competes
+  for its memory and its time and spoils the measurement.
+* Per-rep wall times are measured individually, each ending in
+  ``block_until_ready``, and reported (``rep_times``), along with their
+  max/min spread ratio (``rep_spread``).
 * If the spread across reps exceeds 2x, the whole timed section re-runs
-  once; the faster run (by median rep) is reported and ``reran`` is set.
-* The result is compared against the best previously committed BENCH_r*.json
-  artifact in the repo root. If it comes in below 50% of that, the output
-  carries ``"degraded": true`` plus a reason, so a contended/anomalous run
-  can never silently become the artifact of record again.
+  once; the faster run (by median rep) is reported, ``reran`` is set and the
+  discarded run's times stay in the output.
 """
 
-import glob
 import json
 import os
 import statistics
+import sys
 import time
 
 import numpy as np
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-def _best_committed_value(repo_root):
-    """Max 'value' across previously committed BENCH_r*.json artifacts.
-
-    Handles both artifact schemas: the driver wrapper {n, cmd, rc, tail,
-    parsed: {...}} and the bare one-line {metric, value, ...}.
-    """
-    best = 0.0
-    for path in sorted(glob.glob(os.path.join(repo_root, "BENCH_r*.json"))):
-        try:
-            with open(path) as f:
-                doc = json.load(f)
-        except (json.JSONDecodeError, OSError):
-            continue
-        rec = doc.get("parsed", doc) if isinstance(doc, dict) else None
-        if isinstance(rec, dict) and rec.get("metric") == "trot_mpc_solves_per_sec":
-            try:
-                best = max(best, float(rec.get("value", 0.0)))
-            except (TypeError, ValueError):
-                pass
-    return best
+B = 512
+N_REP = 5
 
 
-def _timed_reps(solve, args, n_rep):
+def make_spec():
+    from bunmpc_tpu.mpc import kino_dyn as KD
+    from bunmpc_tpu.mpc.motions.solo12_cyclic import trot
+    from bunmpc_tpu.robots.solo12 import Solo12Config
+
+    return KD.make_cyclic_spec(Solo12Config.load_model(), trot, Solo12Config.q0())
+
+
+def make_inputs(batch: int = B, seed: int = 0):
+    """Random Solo12 trot commands: joint and velocity noise around q0, a
+    random gait clock and random (vx, vy, wz) commands; float32."""
+    import jax.numpy as jnp
+
+    from bunmpc_tpu.robots.solo12 import Solo12Config
+
+    dtype = jnp.float32
+    rng = np.random.default_rng(seed)
+    q = np.tile(Solo12Config.q0(), (batch, 1))
+    q[:, 7:] += rng.normal(size=(batch, 12)) * 0.05
+    v = rng.normal(size=(batch, 18)) * 0.05
+    t = rng.uniform(0, 0.5, size=batch)
+    v_des = np.stack(
+        [rng.uniform(-0.3, 0.5, batch), rng.uniform(-0.2, 0.2, batch), np.zeros(batch)], -1
+    )
+    w_des = rng.uniform(-0.3, 0.3, size=batch)
+    return tuple(jnp.asarray(a, dtype) for a in (q, v, t, v_des, w_des))
+
+
+def admm_config():
+    """The timed ADMM settings. The defaults carry the accelerated outer
+    schedule (dual over-relaxation + rho escalation with divergence backoff).
+    x_solver="thomas" is the exact block-tridiagonal X-subproblem solve
+    (solvers/block_thomas.py); fista_max_iters=30 caps the F-subproblem
+    FISTA, validated at conv@1e-3 = 1.0 across the B=512 Solo12 command
+    envelope with trajectory drift within the ADMM's own tolerance."""
+    from bunmpc_tpu.mpc.motions.solo12_cyclic import trot
+    from bunmpc_tpu.solvers.biconvex import BiconvexConfig
+
+    return BiconvexConfig(rho=trot.rho, x_solver="thomas", fista_max_iters=30)
+
+
+def make_solve(spec, admm_cfg):
+    """The jitted batched solve that is timed."""
+    import jax
+
+    from bunmpc_tpu.mpc import kino_dyn as KD
+
+    return jax.jit(
+        lambda q, v, t, vd, wd: KD.solve_mpc_batch(spec, q, v, t, vd, wd, admm_cfg=admm_cfg)
+    )
+
+
+def converged_frac(plans) -> float:
+    """Share of lanes at the solver's own exit tolerance (reference exit_tol
+    1e-3, biconvex.hpp:160), not a looser headline gate."""
+    return float(np.mean(np.asarray(plans.dyn_violation) < 1e-3))
+
+
+def timed_reps(solve, args):
     import jax
 
     times = []
-    for _ in range(n_rep):
+    for _ in range(N_REP):
         t0 = time.perf_counter()
         jax.block_until_ready(solve(*args))
         times.append(time.perf_counter() - t0)
@@ -68,83 +105,25 @@ def _timed_reps(solve, args, n_rep):
 
 
 def main():
+    from bunmpc_tpu.utils.device import card_record, require_gpu
+    from bunmpc_tpu.utils.runtime import setup_jax
+
+    setup_jax()
+    dev = require_gpu()
     import jax
 
-    repo_root = os.path.dirname(os.path.abspath(__file__))
-    cache_dir = os.path.join(repo_root, ".jax_cache")
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    import jax.numpy as jnp
+    solve = make_solve(make_spec(), admm_config())
+    args = make_inputs()
 
-    from bunmpc_tpu.mpc import kino_dyn as KD
-    from bunmpc_tpu.mpc.motions.solo12_cyclic import trot
-    from bunmpc_tpu.robots.solo12 import Solo12Config
+    plans = jax.block_until_ready(solve(*args))  # compile + warm-up
+    ok = converged_frac(plans)
 
-    model = Solo12Config.load_model()
-    spec = KD.make_cyclic_spec(model, trot, Solo12Config.q0())
-
-    B = 512  # throughput-optimal on one v5e chip (B=256 compiles faster but
-    # leaves ~15% on the table; see scripts/profile_breakdown.py)
-    dtype = jnp.float32
-    rng = np.random.default_rng(0)
-    q = jnp.asarray(np.tile(Solo12Config.q0(), (B, 1)), dtype)
-    q = q.at[:, 7:].add(jnp.asarray(rng.normal(size=(B, 12)) * 0.05, dtype))
-    v = jnp.asarray(rng.normal(size=(B, 18)) * 0.05, dtype)
-    t = jnp.asarray(rng.uniform(0, 0.5, size=B), dtype)
-    v_des = jnp.asarray(
-        np.stack([rng.uniform(-0.3, 0.5, B), rng.uniform(-0.2, 0.2, B), np.zeros(B)], -1), dtype
-    )
-    w_des = jnp.asarray(rng.uniform(-0.3, 0.3, size=B), dtype)
-
-    # fully-fused batched path: pallas ADMM + pallas DDP-IK kernels
-    # (falls back to the vmapped XLA path on non-TPU backends), with the
-    # accelerated outer-ADMM schedule validated for Solo12 trot (dual
-    # over-relaxation + rho escalation; scripts/ab_precondition.py mode=accel:
-    # ~30 outer iters instead of the 100-iteration cap, conv@1e-3 = 1.00)
-    on_tpu = jax.devices()[0].platform == "tpu"
-    backend = "pallas" if on_tpu else "xla"
-    # Defaults carry the accelerated outer schedule (dual over-relaxation +
-    # rho escalation w/ divergence backoff, default-on since round 3).
-    # x_solver="thomas": exact block-tridiagonal X-subproblem solve (one
-    # ~H-step Cholesky sweep instead of <=150 FISTA iterations per ADMM
-    # iteration; solvers/block_thomas.py) — measured +18% end-to-end at
-    # B=512 (3688 -> 4368 solves/s, same trajectories, conv@1e-3 = 1.0).
-    # fista_max_iters=30 caps the remaining F-subproblem FISTA: validated
-    # conv@1e-3 = 1.0 across the B=512 Solo12 command envelope with
-    # trajectory drift within the ADMM's own solution tolerance (~1e-2);
-    # heavier robots keep the 150 default.
-    if on_tpu:
-        from bunmpc_tpu.solvers.pallas_admm import PallasAdmmConfig
-
-        admm_cfg = PallasAdmmConfig(rho=trot.rho, x_solver="thomas", fista_max_iters=30)
-    else:
-        from bunmpc_tpu.solvers.biconvex import BiconvexConfig
-
-        admm_cfg = BiconvexConfig(rho=trot.rho, x_solver="thomas", fista_max_iters=30)
-    solve = jax.jit(
-        lambda q, v, t, vd, wd: KD.solve_mpc_batch(
-            spec, q, v, t, vd, wd, admm_cfg=admm_cfg,
-            admm_backend=backend, ik_backend=backend,
-        )
-    )
-    args = (q, v, t, v_des, w_des)
-
-    # warm-up / compile
-    plans = jax.block_until_ready(solve(*args))
-    # converged = at the solver's own exit tolerance (reference exit_tol 1e-3,
-    # biconvex.hpp:160) — NOT a looser headline gate
-    ok = float(jnp.mean((plans.dyn_violation < 1e-3).astype(jnp.float32)))
-
-    n_rep = 5
-    times = _timed_reps(solve, args, n_rep)
+    times = timed_reps(solve, args)
     spread = max(times) / max(min(times), 1e-12)
-    reran = False
+    times_discarded = None
     if spread > 2.0:
-        # Unstable timing — likely contention or a thermal/power event.
-        # Re-run once and keep the faster (by median) of the two runs.
-        times2 = _timed_reps(solve, args, n_rep)
-        reran = True
+        # unstable timing: re-run once and keep the faster (by median) run
+        times2 = timed_reps(solve, args)
         if statistics.median(times2) < statistics.median(times):
             times, times_discarded = times2, times
         else:
@@ -153,40 +132,21 @@ def main():
 
     dt = statistics.median(times)
     solves_per_sec = B / dt
-
-    best_prior = _best_committed_value(repo_root)
-    degraded = bool(best_prior > 0 and solves_per_sec < 0.5 * best_prior)
-
     out = {
         "metric": "trot_mpc_solves_per_sec",
-        "value": round(solves_per_sec, 1),
+        "value": solves_per_sec,
         "unit": "solves/s",
-        "vs_baseline": round(solves_per_sec / 20.0, 2),
+        "vs_baseline": solves_per_sec / 20.0,
         "batch": B,
-        "sec_per_batch": round(dt, 4),
-        "converged_frac": round(ok, 3),
-        "device": str(jax.devices()[0]),
-        "rep_times": [round(x, 4) for x in times],
-        "rep_spread": round(spread, 2),
-        "reran": reran,
-        # both sides of a spread-triggered re-run stay visible (advisor
-        # round-4): the discarded run's times expose the best-case bias a
-        # keep-the-faster protocol would otherwise hide
-        **(
-            {"rep_times_discarded": [round(x, 4) for x in times_discarded]}
-            if reran
-            else {}
-        ),
-        "best_committed": round(best_prior, 1),
+        "sec_per_batch": dt,
+        "converged_frac": ok,
+        "device": card_record(dev),
+        "rep_times": times,
+        "rep_spread": spread,
+        "reran": times_discarded is not None,
     }
-    if degraded:
-        out["degraded"] = True
-        out["degraded_reason"] = (
-            f"measured {solves_per_sec:.0f} solves/s < 50% of best committed "
-            f"artifact ({best_prior:.0f}); the TPU was likely contended "
-            "(single-owner chip required) or throttled — re-run on an idle "
-            "chip before treating this as a regression"
-        )
+    if times_discarded is not None:
+        out["rep_times_discarded"] = times_discarded
     print(json.dumps(out))
 
 

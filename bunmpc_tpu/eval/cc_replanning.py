@@ -1,6 +1,6 @@
 """Effects-of-cc-replanning evaluation: vc vs cc-static vs cc-replanned.
 
-TPU-native twin of the reference ablation drivers
+JAX twin of the reference ablation drivers
 (reference behavioral_cloning_evaluation_effects_of_cc_replanning.py:339-357,
 behavioral_cloning_evaluation_with_cc_replan.py, test_policy_with_cc_replan.py):
 for each command, roll out

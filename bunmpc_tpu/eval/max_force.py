@@ -1,6 +1,6 @@
 """Robustness envelopes: maximum survivable push search.
 
-TPU-native twin of the reference stress tools (reference
+JAX twin of the reference stress tools (reference
 max_force_search.py:32-344 binary-searches the largest external push the
 controller survives; analysis/solo12_robustness_analysis.py applies random
 pushes until failure). The binary search stays host-side (few steps), but

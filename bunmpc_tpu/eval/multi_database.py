@@ -1,6 +1,6 @@
 """Multi-database policy benchmark (C27).
 
-TPU-native twin of the reference multi-database BC benchmark drivers
+JAX twin of the reference multi-database BC benchmark drivers
 (reference behavioral_cloning_train_multi_database.py and
 behavioral_cloning_vc_evaluation_multi_database.py): train one policy per
 saved database snapshot (e.g. per dataset size or per collection strategy),

@@ -1,6 +1,6 @@
 """Policy-remembering ("past goals") evaluation.
 
-TPU-native twin of the reference
+JAX twin of the reference
 ``test_policy_rollout_with_past_goals.py`` (reference
 examples/iterative_algorithm/test_policy_rollout_with_past_goals.py:481-660,
 the only eval driver without a round-2 counterpart): goals are visited

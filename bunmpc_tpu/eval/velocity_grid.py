@@ -1,6 +1,6 @@
 """Velocity-tracking evaluation over command grids.
 
-TPU-native twin of the reference policy/MPC eval suite (reference
+JAX twin of the reference policy/MPC eval suite (reference
 behavioral_cloning_vc_evaluation_iterative.py, test_sweep_policy.py,
 sweep eval loops in safedagger_modified.py:491-516): roll out over a grid of
 commanded (vx, vy, w) and report per-command velocity-tracking MSE and

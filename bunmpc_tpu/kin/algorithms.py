@@ -1,6 +1,6 @@
 """Batched rigid-body kinematics & dynamics in JAX.
 
-TPU-native replacement for the Pinocchio calls in the reference hot path
+JAX replacement for the Pinocchio calls in the reference hot path
 (FK/CoM/centroidal momentum: src/motion_planner/kino_dyn.cpp:42,
 src/ik/action_model.cpp:60-63; RNEA + frame Jacobians:
 examples/controllers/robot_id_controller.py:55,78).
@@ -8,9 +8,8 @@ examples/controllers/robot_id_controller.py:55,78).
 Design: topology is static (``RobotModel`` numpy constants), so every
 algorithm unrolls at trace time into a fixed chain of small dense ops that
 broadcast over arbitrary leading batch dimensions. With B ~ 10^3 rollouts the
-batch axis carries all the parallelism; XLA fuses the per-body ops and the VPU
-eats them. No Pallas needed at this level — these are O(n_bodies) elementwise
-/ 3x3 ops, not matmul-shaped.
+batch axis carries all the parallelism; XLA fuses the per-body ops — these
+are O(n_bodies) elementwise / 3x3 ops, not matmul-shaped.
 
 All quantities follow the Pinocchio conventions used by the reference:
 world-frame body poses, local-frame base velocity in ``v[:6]`` (linear first),

@@ -1,6 +1,6 @@
 """Bayesian goal-distribution update over the velocity-command grid.
 
-TPU-native twin of the reference LocoSafeDagger Bayesian machinery (reference
+JAX twin of the reference LocoSafeDagger Bayesian machinery (reference
 examples/iterative_algorithm/locosafedagger_modified.py:357-425 and the 2-D
 prototype test_bayesian_update.py:18-154): a discrete grid over (vx, vy, w),
 a Gaussian likelihood centered at the observed goal, a multiplicative

@@ -1,6 +1,6 @@
 """Behavioral-cloning trainer (Flax/Optax, mesh-sharded).
 
-TPU-native twin of the reference BC trainers (reference
+JAX twin of the reference BC trainers (reference
 examples/iterative_algorithm/behavioral_cloning_train.py:35-244 and the
 *_vc_policy / *_multi_database variants): L1 loss, Adam, train/val split,
 periodic checkpoints of network + normalization payload. The torch DataLoader

@@ -1,6 +1,6 @@
 """Offline Raibert contact planner — the expert cc-goal generator.
 
-TPU-native twin of the reference ``ContactPlanner`` (reference
+JAX twin of the reference ``ContactPlanner`` (reference
 examples/iterative_algorithm/contact_planner.py:9-257): produce the *desired*
 long-horizon contact plan and contact schedule for a commanded velocity,
 which the cc-conditioned policy is trained/evaluated against. Reuses the

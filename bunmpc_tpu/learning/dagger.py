@@ -1,6 +1,6 @@
 """Iterative DAgger / SafeDAgger / LocoSafeDagger drivers.
 
-TPU-native twins of the reference iteration loops (reference
+JAX twins of the reference iteration loops (reference
 examples/iterative_algorithm/dagger_modified.py:39-918,
 safedagger_modified.py:51-916, locosafedagger_modified.py:62-627). The
 structure is identical — {train -> roll out with expert mixing/gating ->

@@ -1,6 +1,6 @@
 """BC dataset generation driver.
 
-TPU-native twin of the reference ``DataCollection`` (reference
+JAX twin of the reference ``DataCollection`` (reference
 examples/iterative_algorithm/data_collection.py:34-288): per iteration,
 sample a gait + velocity command, roll out a nominal (benchmark) MPC episode,
 then roll out *batches* of contact-conditioned perturbed MPC episodes from

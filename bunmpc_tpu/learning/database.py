@@ -1,6 +1,6 @@
 """Replay database: ring buffer + hdf5 snapshots.
 
-TPU-native twin of the reference ``Database`` (reference
+JAX twin of the reference ``Database`` (reference
 examples/iterative_algorithm/database.py:9-230): fixed-capacity overwrite ring
 over (states, vc_goals, cc_goals, actions) with input normalization recomputed
 on append. Differences by design: storage is preallocated numpy (the reference

@@ -1,6 +1,6 @@
 """Goal construction, contact schedules, and command sampling utilities.
 
-TPU-native twin of the reference goal/schedule utilities (reference
+JAX twin of the reference goal/schedule utilities (reference
 examples/iterative_algorithm/utils.py:36-289). Host-side numpy: goal
 construction runs on logged rollout outputs between device phases.
 """

@@ -1,6 +1,6 @@
 """GP-based Bayesian optimization over velocity goals.
 
-TPU-native twin of the reference's skopt-based search (reference
+JAX twin of the reference's skopt-based search (reference
 examples/iterative_algorithm/test_bayesian_optimization.py:65-678:
 ``gp_minimize`` with an LCB acquisition, n_calls=10, over (vx, w), objective
 = min(MPC tracking error, policy tracking error)). skopt is not in this

@@ -1,6 +1,6 @@
 """Policy networks (Flax).
 
-TPU-native twin of the reference ``GoalConditionedPolicyNet`` (reference
+JAX twin of the reference ``GoalConditionedPolicyNet`` (reference
 examples/iterative_algorithm/networks.py:7-81): an MLP mapping
 [state(43) ⊕ goal] -> action(12), ReLU, optional BatchNorm, Kaiming fan-in
 init. Defaults mirror the reference (4 hidden layers x 256) and the BC config

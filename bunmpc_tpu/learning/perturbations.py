@@ -1,6 +1,6 @@
 """Contact-conditioned state perturbations for data collection.
 
-TPU-native twin of the reference's perturbation sampler (reference
+JAX twin of the reference's perturbation sampler (reference
 examples/iterative_algorithm/data_collection.py:225-262): Gaussian tangent
 perturbations of a nominal state, projected into the nullspace of the stacked
 contact Jacobian so the perturbed state keeps the stance feet where they are,

@@ -1,6 +1,6 @@
 """Acyclic motion planner: jumps, cartwheels, rearing, stand.
 
-TPU-native twin of the reference ``SoloAcyclicGen`` (reference
+JAX twin of the reference ``SoloAcyclicGen`` (reference
 examples/mpc/abstract_acyclic_gen.py:13-468): the contact plan, nominal
 states, CoM bounds, swing via-points and state/ctrl regularization all come
 from *time-stamped segments* in an :class:`ACyclicMotionParams` motion file;

@@ -1,14 +1,14 @@
 """Batched centroidal-dynamics constraint operators for the biconvex MPC.
 
-TPU-native twin of the reference ``CentroidalDynamics`` (reference
+JAX twin of the reference ``CentroidalDynamics`` (reference
 src/dynamics/centroidal.cpp:57-127, include/dynamics/centroidal.hpp:14-58).
 
 The reference builds sparse Eigen matrices ``A_x (9(H+1) x 3*ne*H)`` and
-``A_f (9(H+1) x 9(H+1))`` coefficient-by-coefficient. On TPU we never
+``A_f (9(H+1) x 9(H+1))`` coefficient-by-coefficient. We never
 materialize them: both are structured stencils (block-bidiagonal in the knot
 index with 3-vector cross-product blocks), so each matvec/rmatvec is a handful
-of fused elementwise ops on ``(..., H, n_eff, 3)`` tensors — VPU work with
-zero HBM traffic beyond the operands. The batch axis carries the parallelism.
+of fused elementwise ops on ``(..., H, n_eff, 3)`` tensors, with no
+device-memory traffic beyond the operands. The batch axis carries the parallelism.
 
 State layout  X: (..., H+1, 9)  = [com(3), vcom(3), amom(3)] per knot
 Force layout  F: (..., H, n_eff, 3)

@@ -1,6 +1,6 @@
 """Cyclic gait phase machine + vectorized Raibert contact planner.
 
-TPU-native twins of the reference ``GaitPlanner`` (reference
+JAX twins of the reference ``GaitPlanner`` (reference
 src/gait_planner/gait_planner.cpp:31-121) and ``SoloMpcGaitGen.create_cnt_plan``
 (reference examples/mpc/abstract_cyclic_gen.py:159-414).
 

@@ -1,6 +1,6 @@
 """Kinematic-IK cost assembly for the DDP sweep.
 
-TPU-native twin of the reference IK task API (reference
+JAX twin of the reference IK task API (reference
 src/ik/inverse_kinematics.cpp + src/ik/{com_tasks,end_effector_tasks,
 regularization_costs}.cpp, driven from examples/mpc/abstract_cyclic_gen.py:
 545-562 and src/motion_planner/kino_dyn.cpp:53-56).
@@ -110,7 +110,7 @@ def build_residual_fns(model: RobotModel, eff_frames, tasks: IkTasks):
 
 def dense_weights(model: RobotModel, eff_frames, tasks: IkTasks):
     """Dense residual-weight tensors in build_residual_fns' row layout —
-    the input format of the fused Pallas DDP kernel (solvers/pallas_ddp.py).
+    the input format of the native IK twin (native/bindings.py).
 
     Returns (w_stage (H, nr), w_term (nrt,), ctrl_weight (H, nv),
     x_reg (H+1, nq+nv)) with nr = 3*n_eff + 9 + 2nv, nrt = 9 + 2nv."""
@@ -141,8 +141,8 @@ def dense_weights(model: RobotModel, eff_frames, tasks: IkTasks):
 
 def build_jacobian_fns(model: RobotModel, eff_frames, tasks: IkTasks):
     """Structured Gauss-Newton Jacobians for the IK residual stack — the
-    TPU-native replacement for brute-force tangent ``jacfwd`` over the fused
-    residual (the dominant cost of the whole MPC solve; ROADMAP perf item 2).
+    JAX replacement for brute-force tangent ``jacfwd`` over the fused
+    residual (the dominant cost of the whole MPC solve).
 
     Exploits the residual structure (crocoddyl computes the same blocks
     analytically per cost model, reference src/ik/{com_tasks,
@@ -293,8 +293,8 @@ def solve_ik(
 
     ``analytic_jacobians`` selects the structured Gauss-Newton Jacobian path
     (build_jacobian_fns): identical derivatives (verified to 1e-9 vs the
-    autodiff oracle, tests/test_ik_jacobians.py), ~8% cheaper per DDP
-    iteration on TPU. In f32 the two paths can take different (equally
+    autodiff oracle, tests/test_ik_jacobians.py), and cheaper per DDP
+    iteration. In f32 the two paths can take different (equally
     converged) line-search branches, so trajectories match exactly only in
     f64."""
     stage, term, ctrl_w = build_residual_fns(model, eff_frames, tasks)

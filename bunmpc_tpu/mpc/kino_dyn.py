@@ -1,6 +1,6 @@
 """Kino-dynamic MPC orchestrator: one fused, jittable whole-body solve.
 
-TPU-native twin of the reference pipeline
+JAX twin of the reference pipeline
 ``SoloMpcGaitGen.optimize -> KinoDynMP::optimize`` (reference
 examples/mpc/abstract_cyclic_gen.py:629-698, src/motion_planner/kino_dyn.cpp:
 39-99): contact plan -> cost assembly -> centroidal ADMM -> kinematic DDP ->
@@ -176,8 +176,7 @@ class MpcPlan(NamedTuple):
     dyn_violation: jnp.ndarray  # ()
     admm_iters: jnp.ndarray  # ()
     ik_cost: jnp.ndarray  # ()
-    P_opt: jnp.ndarray  # (H+1, 9) ADMM scaled dual (zeros on the pallas
-    # path, which keeps the dual VMEM-internal); feeds warm_start carry
+    P_opt: jnp.ndarray  # (H+1, 9) ADMM scaled dual; feeds warm_start carry
 
 
 def _interp_1khz(spec: CyclicMpcSpec, dts, knots):
@@ -302,62 +301,6 @@ def _prepare_problem(
     return out
 
 
-def make_prep_consts(spec: CyclicMpcSpec):
-    """Static constants for the fused-prep Pallas path
-    (solvers/pallas_admm.py::PrepConsts)."""
-    from ..solvers import pallas_admm as PA
-
-    p = spec.params
-    g = spec.gait
-    return PA.PrepConsts(
-        gait_period=float(g.gait_period),
-        gait_dt=float(g.gait_dt),
-        stance_percent=tuple(float(x) for x in g.stance_percent),
-        phase_offset=tuple(float(x) for x in g.phase_offset),
-        foot_size=float(spec.planner.foot_size),
-        nom_ht=float(p.nom_ht),
-        ori_correction=tuple(float(x) for x in p.ori_correction),
-        gait_horizon=float(p.gait_horizon),
-        izz_yaw=float((np.asarray(spec.I_comp) @ np.array([0.0, 0.0, 1.0]))[2]),
-        W_X=tuple(float(x) for x in np.asarray(p.W_X)),
-        W_X_ter=tuple(float(x) for x in np.asarray(p.W_X_ter)),
-        W_F=tuple(float(x) for x in np.asarray(p.W_F)),
-        bx=float(spec.bx),
-        by=float(spec.by),
-        bz=float(spec.bz),
-        warm_start_vdes=spec.warm_start_style == "vdes",
-        f_reg_weight=getattr(p, "f_reg_style", "zero") == "weight",
-    )
-
-
-def _compact_inputs(spec: CyclicMpcSpec, q, v, t, v_des, w_des):
-    """Single-sample XLA prologue of the fused-prep path: the kinematics the
-    kernel cannot cheaply rebuild (FK/centroidal state, foot positions,
-    yaw-frame hip offsets, orientation-correction momentum). Everything else
-    in `_prepare_problem` is reconstructed inside the kernel
-    (pallas_admm.prep_values)."""
-    dtype = q.dtype
-    q = q.at[0:2].set(0.0)
-    t = jnp.asarray(t, dtype)
-    Rfull = Q.quat_to_rot(q[3:7])
-    v_des_w = Rfull @ v_des
-    m = spec.model.total_mass
-    com, h_lin, h_ang, ee_pos = K.centroidal_state_and_frames(
-        spec.model, q, v, spec.eff_frames
-    )
-    x_init = jnp.concatenate([com, h_lin / m, h_ang])
-    Ryaw = Q.quat_to_rot(Q.yaw_quat(q[3:7]))
-    hip_world = jnp.einsum(
-        "ij,nj->ni", Ryaw, jnp.asarray(spec.planner.hip_offsets, dtype)
-    )
-    ori_des = jnp.where(
-        w_des != 0.0, q[3:7], jnp.array([0.0, 0.0, 0.0, 1.0], dtype)
-    )
-    des_yaw = Q.yaw_quat(ori_des)
-    amom = Q.log3_quat(Q.quat_mul(des_yaw, Q.quat_conj(q[3:7])))
-    return q, t, v_des_w, x_init, ee_pos, hip_world, amom
-
-
 def _build_ik_tasks(spec: CyclicMpcSpec, prob, dyn_X):
     """IK task construction from the dynamics solution (single sample):
     tracking targets from the dyn plan (kino_dyn.cpp:50-56) + swing tasks
@@ -410,45 +353,30 @@ def _build_ik_tasks(spec: CyclicMpcSpec, prob, dyn_X):
     return tasks, x0
 
 
-def _finish_from_ik(
-    spec, prob, dyn_X, dyn_F, dyn_viol, dyn_iters, ik_xs, ik_us, ik_cost, dyn_P=None
-):
-    """1 kHz interpolation + plan assembly (abstract_cyclic_gen.py:677-698)."""
+def _finish_solve(spec: CyclicMpcSpec, prob, dyn: biconvex.BiconvexResult, ddp_cfg):
+    """Single-sample IK from the dynamics solution, then 1 kHz interpolation
+    and plan assembly (abstract_cyclic_gen.py:677-698)."""
+    tasks, x0 = _build_ik_tasks(spec, prob, dyn.X)
+    ik = IK.solve_ik(spec.model, spec.eff_frames, x0, tasks, ddp_cfg)
     plan = prob["plan"]
-    dt_arr = plan.dt
     sz = spec.size
-    dts_sz = dt_arr[:sz]
-    xs_int = _interp_1khz(spec, dts_sz, ik_xs[: sz + 1])
-    us_int = _interp_1khz(spec, dts_sz, jnp.concatenate([ik_us, ik_us[-1:]])[: sz + 1])
-    f_knots = dyn_F[: sz + 1].reshape(sz + 1, -1)
-    f_int = _interp_1khz(spec, dts_sz, f_knots)
-
-    cnt_plan_out = jnp.concatenate([plan.cnt[..., None], plan.r], axis=-1)
+    dts_sz = plan.dt[:sz]
+    xs_int = _interp_1khz(spec, dts_sz, ik.xs[: sz + 1])
+    us_int = _interp_1khz(spec, dts_sz, jnp.concatenate([ik.us, ik.us[-1:]])[: sz + 1])
+    f_int = _interp_1khz(spec, dts_sz, dyn.F[: sz + 1].reshape(sz + 1, -1))
     return MpcPlan(
         xs_int=xs_int,
         us_int=us_int,
         f_int=f_int,
-        X_opt=dyn_X,
-        F_opt=dyn_F,
-        xs=ik_xs,
-        us=ik_us,
-        cnt_plan=cnt_plan_out,
-        dyn_violation=dyn_viol,
-        admm_iters=dyn_iters,
-        ik_cost=ik_cost,
-        P_opt=jnp.zeros_like(dyn_X) if dyn_P is None else dyn_P,
-    )
-
-
-def _finish_solve(
-    spec: CyclicMpcSpec, prob, dyn_X, dyn_F, dyn_viol, dyn_iters, ddp_cfg, dyn_P=None
-):
-    """Single-sample IK + 1 kHz interpolation from the dynamics solution."""
-    tasks, x0 = _build_ik_tasks(spec, prob, dyn_X)
-    ik_res = IK.solve_ik(spec.model, spec.eff_frames, x0, tasks, ddp_cfg)
-    return _finish_from_ik(
-        spec, prob, dyn_X, dyn_F, dyn_viol, dyn_iters, ik_res.xs, ik_res.us,
-        ik_res.cost, dyn_P=dyn_P,
+        X_opt=dyn.X,
+        F_opt=dyn.F,
+        xs=ik.xs,
+        us=ik.us,
+        cnt_plan=jnp.concatenate([plan.cnt[..., None], plan.r], axis=-1),
+        dyn_violation=dyn.viol_norm,
+        admm_iters=dyn.admm_iters,
+        ik_cost=ik.cost,
+        P_opt=dyn.P,
     )
 
 
@@ -493,9 +421,7 @@ def solve_mpc(
         x_bounds=prob["x_bounds"],
         F_ref=prob.get("F_ref"),
     )
-    return _finish_solve(
-        spec, prob, dyn.X, dyn.F, dyn.viol_norm, dyn.admm_iters, ddp_cfg, dyn_P=dyn.P
-    )
+    return _finish_solve(spec, prob, dyn, ddp_cfg)
 
 
 def solve_mpc_batch(
@@ -505,127 +431,16 @@ def solve_mpc_batch(
     t: jnp.ndarray,  # (B,)
     v_des: jnp.ndarray,  # (B, 3)
     w_des: jnp.ndarray,  # (B,)
-    admm_cfg=None,  # BiconvexConfig (xla) or pallas_admm.PallasAdmmConfig
+    admm_cfg: biconvex.BiconvexConfig | None = None,
     ddp_cfg: ddp.DdpConfig = ddp.DdpConfig(),
-    admm_backend: str = "pallas",
-    ik_backend: str = "pallas",
-    fuse_prep: bool = False,
 ) -> MpcPlan:
-    """Batched kino-dynamic MPC with the fused Pallas kernels.
+    """Batched kino-dynamic MPC: ``solve_mpc`` vmapped over the leading axis.
 
-    The plan/cost assembly and interpolation are vmapped; the centroidal ADMM
-    runs as ONE `pallas_call` over the whole batch (solvers/pallas_admm.py),
-    and with ik_backend="pallas" the kinematic GN-DDP does too
-    (solvers/pallas_ddp.py: forward rollouts, hand-derived Jacobians, Riccati,
-    Cholesky and line search all inside the kernel — ~4x faster than the
-    vmapped XLA DDP at B=256). B must be a multiple of 128 for the pallas
-    ADMM backend; the pallas IK pads internally.
-    """
-    from ..solvers import pallas_admm
-
-    if admm_backend not in ("pallas", "xla"):
-        raise ValueError(f"admm_backend must be 'pallas' or 'xla', got {admm_backend!r}")
-    if ik_backend not in ("pallas", "xla"):
-        raise ValueError(f"ik_backend must be 'pallas' or 'xla', got {ik_backend!r}")
-    p = spec.params
-    if fuse_prep and admm_backend == "pallas":
-        # fused problem assembly: the contact plan + costs + bounds + warm
-        # starts are built INSIDE the ADMM kernel from ~30 floats/sample;
-        # only the FK-derived kinematics stay in XLA (flat ground, no
-        # touchdown noise — use fuse_prep=False for terrain/fault paths)
-        if admm_cfg is None:
-            from ..solvers import pallas_admm as _PA
-
-            admm_cfg = _PA.PallasAdmmConfig(rho=p.rho, x_solver="thomas")
-        qr, t_, vdw, x_init, ee, hip, amom = jax.vmap(
-            lambda q, v, t, vd, wd: _compact_inputs(spec, q, v, t, vd, wd)
-        )(q, v, t, v_des, w_des)
-        X, F, viol, iters, cnt, r_pl, dts, swing = pallas_admm.solve_from_state(
-            t_, vdw, w_des, x_init, ee, hip, amom,
-            spec.model.total_mass, make_prep_consts(spec), admm_cfg,
-            spec.horizon, spec.n_eff,
-        )
-        prob = dict(
-            q=qr, v=v, x_init=x_init,
-            plan=G.ContactPlan(cnt=cnt, r=r_pl, dt=dts), swing_mask=swing,
-        )
-        P = jnp.zeros_like(X)
-    else:
-        prob = jax.vmap(lambda q, v, t, vd, wd: _prepare_problem(spec, q, v, t, vd, wd))(
-            q, v, t, v_des, w_des
-        )
-    if fuse_prep and admm_backend == "pallas":
-        pass  # solved above
-    elif admm_backend == "pallas":
-        if admm_cfg is None:
-            admm_cfg = pallas_admm.PallasAdmmConfig(rho=p.rho, x_solver="thomas")
-        X, F, viol, iters = pallas_admm.solve(
-            prob["plan"],
-            spec.model.total_mass,
-            prob["x_init"],
-            prob["W"],
-            prob["X_ref"],
-            prob["W_F"],
-            prob["X_wm"],
-            prob["F_wm"],
-            prob["x_bounds"],
-            admm_cfg,
-            F_reg_ref=prob.get("F_ref"),
-        )
-        P = jnp.zeros_like(X)  # dual stays VMEM-internal in the kernel
-    else:
-        if admm_cfg is None:
-            admm_cfg = biconvex.BiconvexConfig(rho=p.rho, x_solver="thomas")
-        H = spec.horizon
-        dyn = biconvex.solve(
-            prob["plan"],
-            spec.model.total_mass,
-            prob["x_init"],
-            biconvex.CostX(W=prob["W"], X_ref=prob["X_ref"]),
-            prob["W_F"],
-            prob["X_wm"],
-            prob["F_wm"],
-            jnp.zeros(prob["X_wm"].shape, q.dtype),
-            admm_cfg,
-            x_bounds=prob["x_bounds"],
-            F_ref=prob.get("F_ref"),
-        )
-        X, F, viol, iters, P = dyn.X, dyn.F, dyn.viol_norm, dyn.admm_iters, dyn.P
-    if ik_backend == "pallas":
-        from ..solvers import pallas_ddp
-
-        def build_one(pr, Xi):
-            # IkTasks is not a pytree; return the dense arrays the kernel wants
-            tk, x0 = _build_ik_tasks(spec, pr, Xi)
-            ws, wt_, cw, xr = IK.dense_weights(spec.model, spec.eff_frames, tk)
-            return x0, tk.ee_targets, tk.com_ref, tk.mom_ref, xr, ws, wt_, cw, tk.dts
-
-        x0, ee_t, com_r, mom_r, x_reg, w_stage, w_term, ctrl_w, dts = jax.vmap(
-            build_one
-        )(prob, X)
-        ik_xs, ik_us, ik_cost = pallas_ddp.solve_ik_batch(
-            spec.model,
-            spec.eff_frames,
-            x0,
-            ee_t,
-            com_r,
-            mom_r,
-            x_reg,
-            w_stage,
-            w_term,
-            ctrl_w,
-            dts,
-            cfg=pallas_ddp.PallasDdpConfig(
-                n_iters=ddp_cfg.n_iters, alphas=ddp_cfg.alphas, reg=ddp_cfg.reg
-            ),
-        )
-        return jax.vmap(
-            lambda pr, Xi, Fi, vi, it, xs, us, c, Pi: _finish_from_ik(
-                spec, pr, Xi, Fi, vi, it, xs, us, c, dyn_P=Pi
-            )
-        )(prob, X, F, viol, iters, ik_xs, ik_us, ik_cost, P)
+    Every stage (assembly, centroidal ADMM, kinematic GN-DDP, interpolation)
+    is one XLA program over the whole batch; the ADMM and FISTA loops retire
+    lanes by a per-problem convergence mask, so any B works."""
     return jax.vmap(
-        lambda prob, X, F, viol, iters, P: _finish_solve(
-            spec, prob, X, F, viol, iters, ddp_cfg, dyn_P=P
+        lambda q, v, t, vd, wd: solve_mpc(
+            spec, q, v, t, vd, wd, admm_cfg=admm_cfg, ddp_cfg=ddp_cfg
         )
-    )(prob, X, F, viol, iters, P)
+    )(q, v, t, v_des, w_des)

@@ -1,6 +1,6 @@
 """Motion/gait parameter containers.
 
-TPU-native twins of the reference's data-only parameter classes
+JAX twins of the reference's data-only parameter classes
 (reference examples/motions/weight_abstract.py:7-84): frozen dataclasses of
 numpy constants so they can be closed over by jitted programs.
 """

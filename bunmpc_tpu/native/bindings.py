@@ -10,8 +10,10 @@ native-parity requirement).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 
@@ -21,8 +23,6 @@ _SRCS = [
     os.path.join(_DIR, "src", "bunmpc_ik.cpp"),
     os.path.join(_DIR, "src", "bunmpc_plan.cpp"),
 ]
-_LIB = os.path.join(_DIR, "libbunmpc_native.so")
-
 _lib = None
 
 
@@ -30,16 +30,31 @@ def _dptr(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
 
 
-def build(force: bool = False) -> str:
-    """Compile the shared library if missing or stale."""
-    if (
-        force
-        or not os.path.exists(_LIB)
-        or any(os.path.getmtime(_LIB) < os.path.getmtime(src) for src in _SRCS)
-    ):
-        cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", *_SRCS, "-o", _LIB]
-        subprocess.run(cmd, check=True, capture_output=True)
-    return _LIB
+def lib_path() -> str:
+    """The library's path, named by a hash of the committed sources: a copied
+    or stale build of other sources is never loaded, whatever its mtime."""
+    h = hashlib.sha256()
+    for src in _SRCS:
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(_DIR, f"libbunmpc_native.{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the shared library unless a build of these sources exists.
+    Concurrent builders each write a private file and rename it into place."""
+    lib = lib_path()
+    if not os.path.exists(lib):
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_DIR)
+        os.close(fd)
+        try:
+            cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", *_SRCS, "-o", tmp]
+            subprocess.run(cmd, check=True, capture_output=True)
+            os.replace(tmp, lib)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return lib
 
 
 def load():
@@ -386,4 +401,42 @@ def prepare_problem(
     return dict(
         cnt=cnt, r=r, dts=dts, x_init=x_init, W=W, X_ref=X_ref, W_F=W_F,
         lb_x=lb_x, ub_x=ub_x, ee_wts=ee_wts, ee_targets=ee_targets,
+    )
+
+
+def solve_raw(model, eff_frames, hip_frames, q0, params, q, v, t, v_des, w_des,
+              max_admm=4000, exit_tol=1e-6, n_iters=6):
+    """Fully native chain from raw (q, v, t, v_des, w_des): prepare_problem ->
+    ADMM -> IK (kinodyn_solve), with no JAX-assembled input anywhere.
+
+    Matches the JAX layer's documented choices: unrounded contact locations,
+    the CoM-y anchor of X_nom, the reference's cold start (centroidal state
+    tiled, zero forces; the solo family's "tiled" warm start) and
+    regularization towards [q0, 0]. Returns kinodyn_solve's dict."""
+    q = np.asarray(q, np.float64)
+    v = np.asarray(v, np.float64)
+    q0 = np.asarray(q0, np.float64)
+    q_reset = q.copy()
+    q_reset[0:2] = 0.0  # origin reset (abstract_cyclic_gen.py:632-633)
+    com, _, _ = centroidal_state(model, eff_frames, q_reset, v)
+    p = prepare_problem(
+        model, eff_frames, hip_frames, q0, params, q, v, t, np.asarray(v_des), w_des,
+        round3=False, y_anchor=float(com[1]),
+    )
+    nv = model.nv
+    H, ne = p["cnt"].shape
+    ik_h = p["ee_wts"].shape[0]
+    w_sd = np.tile(params.reg_wt[0] * np.asarray(params.state_wt, np.float64), (ik_h + 1, 1))
+    ctrl_w = np.tile(params.reg_wt[1] * np.asarray(params.ctrl_wt, np.float64), (ik_h, 1))
+    # (ik_h+1, nq+nv): the native IK reads one regularization target per knot
+    x_reg = np.tile(np.concatenate([q0, np.zeros(nv)]), (ik_h + 1, 1))
+    return kinodyn_solve(
+        model, eff_frames, model.total_mass,
+        p["cnt"], p["r"], p["dts"], p["x_init"], p["W"], p["X_ref"], p["W_F"],
+        params.rho, np.tile(p["x_init"], (H + 1, 1)), np.zeros((H, ne, 3)),
+        p["dts"][:ik_h], p["ee_targets"], p["ee_wts"],
+        float(params.cent_wt[0]), float(params.cent_wt[1]),
+        w_sd, x_reg, ctrl_w, np.concatenate([q_reset, v]),
+        max_admm=max_admm, exit_tol=exit_tol, n_iters=n_iters,
+        x_bounds=(p["lb_x"], p["ub_x"]),
     )

@@ -13,7 +13,7 @@
 //     (reference src/motion_planner/biconvex.cpp:80-120)
 //
 // The constraint operators are written matrix-free over (H, n_eff, 3)
-// layouts — the same stencil structure the TPU kernels use — which is
+// layouts — the same stencil structure the JAX operators use — which is
 // mathematically identical to the reference's sparse matrices (verified row
 // by row in tests/test_solvers.py against the dense twins).
 //

@@ -1,6 +1,6 @@
 """Unitree Go2 robot description.
 
-TPU-native twin of the reference ``robot_properties_go2`` package (reference
+JAX twin of the reference ``robot_properties_go2`` package (reference
 robot_properties_go2/src/robot_properties_go2/config.py:52,162-165 and the
 xacro sources const.xacro / leg.xacro / go2.urdf.xacro). The reference ships
 only xacro (no pre-generated URDF in this snapshot), so the model is built

@@ -1,6 +1,6 @@
 """Robot model constants for the batched JAX rigid-body stack.
 
-``RobotModel`` is the TPU-native replacement for the Pinocchio ``Model``/``Data``
+``RobotModel`` is the JAX replacement for the Pinocchio ``Model``/``Data``
 pair the reference uses everywhere (e.g. reference
 examples/mpc/abstract_cyclic_gen.py:28-56). Topology is *static*: every array
 here is a host-side numpy constant that gets baked into the XLA trace, so all

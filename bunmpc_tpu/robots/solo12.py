@@ -1,4 +1,4 @@
-"""Solo12 robot description (TPU-native twin of the reference's
+"""Solo12 robot description (JAX twin of the reference's
 ``robot_properties_solo`` L0 package, config at
 robot_properties_solo/src/robot_properties_solo/config.py:246-256 and
 iterative_supervised_learning/robots/solo12/robot_info.yaml:1-14)."""

@@ -1,4 +1,4 @@
-"""Solo8 robot description (TPU-native twin of the reference's Solo8 support:
+"""Solo8 robot description (JAX twin of the reference's Solo8 support:
 robot_properties_solo/src/robot_properties_solo/solo8wrapper.py,
 config.py:73-138, and the xacro sources solo8.urdf.xacro + leg.xacro).
 

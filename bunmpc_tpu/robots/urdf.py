@@ -1,6 +1,6 @@
 """Minimal URDF parser producing :class:`RobotModel` constants.
 
-TPU-native stand-in for ``pinocchio.urdf.buildModel(..., JointModelFreeFlyer())``
+JAX stand-in for ``pinocchio.urdf.buildModel(..., JointModelFreeFlyer())``
 (reference: src/motion_planner/kino_dyn.cpp:9). Parsing happens once on the
 host; the result is a static pytree of numpy constants, so nothing here runs
 inside jit.

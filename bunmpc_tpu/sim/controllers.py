@@ -1,6 +1,6 @@
 """Whole-body inverse-dynamics controller (1 kHz low level).
 
-TPU-native twin of the reference ``InverseDynamicsController``
+JAX twin of the reference ``InverseDynamicsController``
 (reference examples/controllers/robot_id_controller.py:12-86): RNEA
 feed-forward torque minus J^T contact-force compensation, plus joint PD
 feedback. Pure function, broadcasts over batches, fuses into the rollout scan.

@@ -1,6 +1,6 @@
 """In-graph rigid-body simulator with implicit soft ground contacts.
 
-TPU-native replacement for the PyBullet backend (reference L1/L2:
+JAX replacement for the PyBullet backend (reference L1/L2:
 bullet_utils/src/bullet_utils/env.py:82-91, wrapper.py:277-440,
 examples/envs/pybullet_env.py:10-207). The reference steps one PyBullet C
 server per process at 1 kHz; here the whole environment is a pure JAX

@@ -1,6 +1,6 @@
 """Batched rollout engine: MPC / policy / DAgger-style episodes in-graph.
 
-TPU-native twin of the reference ``Simulation`` class (reference
+JAX twin of the reference ``Simulation`` class (reference
 examples/iterative_algorithm/simulation.py:22-2094). The reference runs one
 PyBullet episode per process with a Python 1 kHz loop; here an episode is a
 ``lax.scan`` over replanning windows (outer) and 1 ms control steps (inner),

@@ -1,6 +1,6 @@
 """Batched biconvex ADMM for centroidal dynamics (the "dyn" half of the MPC).
 
-TPU-native twin of the reference ``BiConvexMP`` (reference
+JAX twin of the reference ``BiConvexMP`` (reference
 src/motion_planner/biconvex.cpp:6-151, include/motion_planner/biconvex.hpp:21-193):
 alternate a force QP and a state QP — each solved by projected FISTA with the
 bilinear constraint enforced as a quadratic penalty — and update the scaled
@@ -41,17 +41,17 @@ class BiconvexConfig:
     momentum: str = "reference"
     log_statistics: bool = False  # dyn-violation history (biconvex.hpp:127-139)
     # "power": fixed FISTA step from a power-iteration Lipschitz estimate
-    # (TPU default — no nested line-search loop); "linesearch": the
+    # (hot-path default — no nested line-search loop); "linesearch": the
     # reference's backtracking (fista.cpp:6-27), kept for parity testing.
     step_mode: str = "power"
     power_iters: int = 8
     # Jacobi preconditioning (power mode only): diagonal-metric FISTA with
     # D = lam_max * safety * diag-estimate of the subproblem Hessian (exact
     # closed form from the constraint stencils, per-contact isotropic for the
-    # cone). Identical fixed points. Measured perf-neutral on the trot QPs
-    # (scripts/ab_precondition.py: 1.00x — both variants saturate the
-    # iteration caps; the conditioning is in the temporal-chain off-diagonal,
-    # not the diagonal), so default OFF to keep scalar-step trajectory parity.
+    # cone). Identical fixed points. No faster on the trot QPs (both variants
+    # saturate the iteration caps; the conditioning is in the temporal-chain
+    # off-diagonal, not the diagonal), so default OFF to keep scalar-step
+    # trajectory parity.
     precondition: bool = False
     # Outer-loop acceleration (round-2, DEFAULT-ON since round 3): dual
     # over-relaxation P += alpha*viol and geometric rho escalation with dual
@@ -60,7 +60,7 @@ class BiconvexConfig:
     # outer iterations. The round-2 Go2 divergence (fixed escalation
     # outrunning the capped inner FISTA) is gone with the exact
     # x_solver="thomas" X-solve + the divergence backoff below; measured
-    # round-3 (TPU, B=512 Solo12 / B=128 Go2 random commands): Solo12
+    # round-3 (B=512 Solo12 / B=128 Go2 random commands): Solo12
     # conv@1e-3 = 1.00 @ ~29 iters, Go2 conv@1e-3 = 0.93+ with
     # max_admm_iters=200. Reference schedule = dual_relax=1, rho_growth=1
     # (parity tests pin that).
@@ -68,8 +68,7 @@ class BiconvexConfig:
     rho_growth: float = 3.0
     rho_growth_every: int = 10
     rho_max_scale: float = 81.0  # cap: rho <= rho * rho_max_scale
-    # Stall-gated escalation + divergence backoff (round-3; mirrors
-    # pallas_admm.PallasAdmmConfig): at each growth check a lane escalates
+    # Stall-gated escalation + divergence backoff (round-3): at each growth check a lane escalates
     # only if its violation failed to improve by rho_stall_improve since
     # the last check, and de-escalates one step if it GREW by more than
     # rho_backoff_thresh. Makes the accelerated schedule self-limiting on

@@ -115,11 +115,11 @@ def solve_block_tridiag(M, U, rhs):
     Block-Thomas with per-block Cholesky; the knot scan is sequential (K ~ 21
     for the trot window), everything else broadcasts over the batch axes.
 
-    All matmuls are pinned to full float32 precision: XLA's TPU default
-    lowers f32 dots to bf16 passes, which is catastrophic here — the 9x9
-    Cholesky factors lose positive-definiteness and the "exact" solve (and
-    with it the whole ADMM) diverges to NaN on heavy robots while the same
-    f32 program converges on CPU.
+    All matmuls are pinned to full float32 precision: a reduced-precision
+    f32 dot (TF32 on the GPU) is catastrophic here — the 9x9 Cholesky
+    factors lose positive-definiteness and the "exact" solve (and with it the
+    whole ADMM) diverges to NaN on heavy robots while the same f32 program
+    converges at full precision.
     """
     K = M.shape[-3]
     prec = jax.lax.Precision.HIGHEST

@@ -1,8 +1,8 @@
 """Gauss-Newton DDP on the free-flyer configuration manifold (single sample;
 ``jax.vmap`` the solve for batching — XLA turns the Riccati matrix blocks into
-batched MXU matmuls).
+batched matmuls).
 
-TPU-native replacement for ``crocoddyl::SolverDDP`` as the reference uses it
+JAX replacement for ``crocoddyl::SolverDDP`` as the reference uses it
 for its kinematic IK (reference src/ik/inverse_kinematics.cpp:54-71): the
 "dynamics" is a pure double integrator on (q, v) with control u = v̇
 (reference src/ik/action_model.cpp:43-90 sets Fx=0, Fu=I on the acceleration
@@ -39,10 +39,6 @@ class DdpConfig:
     n_iters: int = 6
     alphas: tuple = (1.0, 0.7, 0.3, 0.1, 0.03)
     reg: float = 1e-9  # Quu Levenberg regularization (crocoddyl regInit)
-    # recompute the GN derivatives only every k-th iteration (inexact/
-    # quasi-Newton); 1 == exact (crocoddyl behavior). The problem is nearly
-    # LQR so stale derivatives cost little accuracy but ~1/k of the autodiff.
-    derivs_every: int = 1
 
 
 class DdpResult(NamedTuple):
@@ -89,9 +85,9 @@ def solve(
 ) -> DdpResult:
     """Minimize sum_k dt_k*[0.5 r_k' W_k r_k + 0.5 u' Wu u] + 0.5 r_N' W_N r_N.
 
-    The whole solve is traced under full-f32 matmul precision: the TPU
-    default (bf16 dot passes) corrupts the Riccati Gauss-Newton blocks on
-    heavier robots — Quu loses positive-definiteness, the Cholesky NaNs,
+    The whole solve is traced under full-f32 matmul precision: reduced
+    precision dots (TF32 on the GPU) corrupt the Riccati Gauss-Newton blocks
+    on heavier robots — Quu loses positive-definiteness, the Cholesky NaNs,
     every line-search candidate is rejected and the returned trajectory
     silently freezes at the warm start (the round-2 Go2 in-sim collapse).
     """
@@ -179,10 +175,8 @@ def _solve_impl(
         return Jr, w, Fx, Fu, Jt
 
     def backward(xs, us, jac):
-        """Riccati sweep with gradients from fresh residuals and curvature
-        from the (possibly frozen, cfg.derivs_every) Jacobians — a chord
-        Gauss-Newton step identical to exact GN when the Jacobians are
-        current."""
+        """Riccati sweep: Gauss-Newton curvature from the Jacobians at
+        (xs, us), gradients from the residuals there."""
         Jr, w, Fx_all, Fu_all, Jt = jac
         r_all = jax.vmap(lambda x, k: residuals_fn(x, k)[0])(xs[:H], jnp.arange(H))
         rt, wt = term_residuals_fn(xs[H])
@@ -226,8 +220,9 @@ def _solve_impl(
         _, (xs_tail, us_new) = jax.lax.scan(f, x0, (jnp.arange(H), xs[:H], us, kffs, Kfbs))
         return jnp.concatenate([x0[None], xs_tail], axis=0), us_new
 
-    def iteration(xs, us, cost, jac):
-        kffs, Kfbs = backward(xs, us, jac)
+    def iteration(_, carry):
+        xs, us, cost = carry
+        kffs, Kfbs = backward(xs, us, all_jacobians(xs, us))
 
         def try_alpha(alpha):
             xs_a, us_a = forward(xs, us, kffs, Kfbs, alpha)
@@ -245,12 +240,10 @@ def _solve_impl(
         return xs, us, cost
 
     xs, us = rollout(us0), us0
-    cost = total_cost(xs, us)
-    # unrolled (n_iters is static): Jacobians refresh every cfg.derivs_every
-    # iterations, gradients are always fresh (chord Gauss-Newton)
-    jac = None
-    for i in range(cfg.n_iters):
-        if i % max(cfg.derivs_every, 1) == 0:
-            jac = all_jacobians(xs, us)
-        xs, us, cost = iteration(xs, us, cost, jac)
+    # a loop, not a Python unroll: one iteration is a large program (FK,
+    # Jacobians, Riccati and line-search scans), and unrolling n_iters of
+    # them multiplies trace and compile time by n_iters
+    xs, us, cost = jax.lax.fori_loop(
+        0, cfg.n_iters, iteration, (xs, us, total_cost(xs, us))
+    )
     return DdpResult(xs=xs, us=us, cost=cost)

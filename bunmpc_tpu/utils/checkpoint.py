@@ -1,6 +1,6 @@
 """Checkpoint / resume for policies and training state.
 
-TPU-native twin of the reference's checkpointing (reference
+JAX twin of the reference's checkpointing (reference
 behavioral_cloning_train.py:169-189 saves the whole torch module + the
 normalization payload; SURVEY.md §5.4). Here policies are Flax param pytrees
 saved via orbax (with a numpy .npz fallback), always together with the

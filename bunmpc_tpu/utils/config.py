@@ -1,6 +1,6 @@
 """Lightweight YAML config system.
 
-TPU-native replacement for the reference's Hydra/OmegaConf stack (reference
+JAX replacement for the reference's Hydra/OmegaConf stack (reference
 cfgs/*.yaml + ``@hydra.main`` decorators, SURVEY.md §5.6): plain YAML files
 under ``bunmpc_tpu/configs/``, loaded into nested dicts with dotted-path CLI
 overrides (``key.subkey=value``), plus dataclass hydration. No Slurm launcher

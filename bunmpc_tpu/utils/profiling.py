@@ -1,6 +1,6 @@
 """Solver profiling: the dyn/IK/total solve-time triptych + device tracing.
 
-TPU-native twin of the reference's profiling hooks (reference
+JAX twin of the reference's profiling hooks (reference
 src/motion_planner/kino_dyn.cpp:66-79 ``compute_solve_times`` and
 examples/analysis/solve_times_test.py:66-118): named wall-clock phases plus
 ``jax.profiler`` trace capture for per-kernel inspection on device.

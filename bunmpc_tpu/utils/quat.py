@@ -10,8 +10,8 @@ exchanged 1:1 (reference: robot_properties_solo config.py:246-256 uses
   (body-frame) convention, matching Pinocchio's Lie-group integrate/difference
   that the reference IK relies on (reference: src/ik/action_model.cpp:43-70).
 
-Everything is pure jnp so it fuses into surrounding XLA programs; no Pallas is
-needed here (tiny elementwise ops, VPU-bound).
+Everything is pure jnp so it fuses into surrounding XLA programs (tiny
+elementwise ops).
 """
 
 from __future__ import annotations
@@ -239,7 +239,8 @@ def se3_integrate(p, q, dv, dw):
 
 def _so3_left_jacobian_inv(w):
     """Closed-form V(w)^-1 (avoids a batched 3x3 linear solve on the DDP hot
-    path — generic linalg.solve lowers poorly on TPU). Gradient-safe at w=0."""
+    path — a generic batched linalg.solve is far slower). Gradient-safe at
+    w=0."""
     sq = jnp.sum(w * w, axis=-1)[..., None, None]
     small = sq < 1e-10
     sq_safe = jnp.where(small, 1.0, sq)

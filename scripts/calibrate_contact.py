@@ -21,7 +21,7 @@ the calibration the verdict asks for:
    tests/test_gait_quality.py pins it.
 
 Usage: python scripts/calibrate_contact.py [out.json] [T_ms]
-Runs on TPU (one compile, ~minutes); serialize with other TPU processes.
+Runs on the GPU (one compile); one process per card.
 """
 
 import itertools
@@ -34,11 +34,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-jax.config.update("jax_compilation_cache_dir", os.path.join(root, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from bunmpc_tpu.utils.runtime import setup_jax  # noqa: E402
+
+setup_jax()
 
 import jax.numpy as jnp
 import numpy as np

@@ -3,7 +3,7 @@
 VERDICT round-4 task 2: the committed learning demo records failed_frac
 0.78-0.94 — the gated (MPC-safety-net) rollouts fall over on most episodes,
 so the database is dominated by near-failure data. This probe isolates the
-three candidate causes on TPU:
+three candidate causes:
 
   A. expert fragility: vmapped rollout_mpc from contact-conditioned perturbed
      starts ON the nominal trajectory (the reference's scheme,
@@ -29,11 +29,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-jax.config.update("jax_compilation_cache_dir", os.path.join(root, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from bunmpc_tpu.utils.runtime import setup_jax  # noqa: E402
+
+setup_jax()
 
 import jax.numpy as jnp
 import numpy as np

@@ -6,7 +6,7 @@ sim/rollout.py) is what fires, not the physical failure envelope. This
 script solves a batch of perturbed Go2 states and reports the NaN fraction
 per pipeline stage (ADMM X/F, IK xs, 1 kHz interp) to localize the blow-up.
 
-Usage: python scripts/probe_go2_nan.py [n] [pert_scale] [backend]
+Usage: python scripts/probe_go2_nan.py [n] [pert_scale]
 """
 
 import os
@@ -15,17 +15,12 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import jax
-
-import os as _os
-
-if _os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", _os.environ["JAX_PLATFORMS"])
 import jax.numpy as jnp
 import numpy as np
 
-cache = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from bunmpc_tpu.utils.runtime import setup_jax  # noqa: E402
+
+setup_jax()
 
 from bunmpc_tpu.mpc import kino_dyn as KD
 from bunmpc_tpu.mpc.motions.go2_cyclic import trot
@@ -36,7 +31,6 @@ from bunmpc_tpu.utils import quat as Q
 def main():
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     scale = float(sys.argv[2]) if len(sys.argv) > 2 else 1.0
-    backend = sys.argv[3] if len(sys.argv) > 3 else "xla"
 
     model = C.load_model()
     spec = KD.make_cyclic_spec(
@@ -64,9 +58,7 @@ def main():
     w_des = np.zeros(B, np.float32)
 
     solve = jax.jit(
-        lambda q, v, t, vd, wd: KD.solve_mpc_batch(
-            spec, q, v, t, vd, wd, admm_backend=backend, ik_backend=backend
-        )
+        lambda q, v, t, vd, wd: KD.solve_mpc_batch(spec, q, v, t, vd, wd)
     )
     plans = jax.block_until_ready(
         solve(jnp.asarray(q), jnp.asarray(v), jnp.asarray(t),
@@ -76,7 +68,7 @@ def main():
     def nan_frac(x):
         return float(jnp.mean(jnp.any(jnp.isnan(x.reshape(B, -1)), axis=1)))
 
-    print(f"B={B} scale={scale} backend={backend}")
+    print(f"B={B} scale={scale}")
     print(f"  X_opt  nan frac: {nan_frac(plans.X_opt):.3f}")
     print(f"  F_opt  nan frac: {nan_frac(plans.F_opt):.3f}")
     print(f"  xs     nan frac: {nan_frac(plans.xs):.3f}")

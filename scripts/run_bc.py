@@ -14,7 +14,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main():
     from bunmpc_tpu.utils.runtime import setup_jax
 
-    setup_jax()  # honor JAX_PLATFORMS + persistent compile cache
+    setup_jax()  # persistent compile cache
     import numpy as np
 
     from bunmpc_tpu.learning.bc import BcConfig, train_policy

@@ -36,7 +36,7 @@ def _parse_range(s, default):
 def main():
     from bunmpc_tpu.utils.runtime import setup_jax
 
-    setup_jax()  # honor JAX_PLATFORMS + persistent compile cache
+    setup_jax()  # persistent compile cache
     import jax.numpy as jnp
     import numpy as np
 

@@ -18,7 +18,7 @@ tests/test_learning_demo.py::test_locosafedagger_posterior_concentrates.
 
 Usage: python scripts/run_locosafedagger_demo.py [out_path] [n_iterations]
         [rollouts_per_iter] [episode_ms]
-Runs on the TPU; serialize with other TPU processes.
+Runs on the GPU; one process per card.
 """
 
 import os
@@ -29,11 +29,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-cache = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from bunmpc_tpu.utils.runtime import setup_jax  # noqa: E402
+
+setup_jax()
 
 import numpy as np
 

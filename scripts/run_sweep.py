@@ -28,7 +28,7 @@ SPACE = {
 def main():
     from bunmpc_tpu.utils.runtime import setup_jax
 
-    setup_jax()  # honor JAX_PLATFORMS + persistent compile cache
+    setup_jax()  # persistent compile cache
     from bunmpc_tpu.learning.bc import BcConfig, train_policy
     from bunmpc_tpu.learning.database import Database
 

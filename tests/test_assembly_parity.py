@@ -187,35 +187,9 @@ def test_raw_to_solution_native_chain_parity(setup):
     assert float(dyn.viol_norm) < 5e-6
 
     # --- fully native chain from the same raw inputs ---
-    com_y = float(prob["x_init"][1])
-    nat_p = native.prepare_problem(
+    nat = native.solve_raw(
         model, spec.eff_frames, HIPS, Solo12Config.q0(), trot,
-        q, v, t, np.asarray(v_des), w_des, round3=False, y_anchor=com_y,
-    )
-    nv = model.nv
-    ik_h = spec.ik_hor
-    state_wt = np.asarray(trot.state_wt, np.float64)
-    w_sd = np.tile(trot.reg_wt[0] * state_wt, (ik_h + 1, 1))
-    ctrl_w = np.tile(trot.reg_wt[1] * np.asarray(trot.ctrl_wt), (ik_h, 1))
-    # (ik_h+1, nq+nv): the native IK reads one regularization target per knot
-    x_reg = np.tile(
-        np.concatenate([np.asarray(Solo12Config.q0()), np.zeros(nv)]),
-        (ik_h + 1, 1),
-    )
-    q_reset = np.asarray(q, np.float64).copy()
-    q_reset[0:2] = 0.0
-    x0n = np.concatenate([q_reset, v])
-    H = spec.horizon
-    nat = native.kinodyn_solve(
-        model, spec.eff_frames, spec.model.total_mass,
-        nat_p["cnt"], nat_p["r"], nat_p["dts"], nat_p["x_init"],
-        nat_p["W"], nat_p["X_ref"], nat_p["W_F"], trot.rho,
-        np.tile(nat_p["x_init"], (H + 1, 1)), np.zeros((H, 4, 3)),
-        nat_p["dts"][:ik_h], nat_p["ee_targets"], nat_p["ee_wts"],
-        float(trot.cent_wt[0]), float(trot.cent_wt[1]),
-        w_sd, x_reg, ctrl_w, x0n,
-        max_admm=4000, exit_tol=1e-6, n_iters=n_gn,
-        x_bounds=(nat_p["lb_x"], nat_p["ub_x"]),
+        q, v, t, v_des, w_des, max_admm=4000, exit_tol=1e-6, n_iters=n_gn,
     )
     assert nat["viol"] < 1e-5
 

@@ -29,9 +29,9 @@ def _product_precision():
     """Run the gait gates at PRODUCT precision (f32). The suite default
     enables x64 for numeric golden tests, but the closed-loop trot is
     chaotic: measured round 5, solo12 trot_sim walks the full 3 s on f32
-    (CPU roll_max 7.9 deg, TPU 5.2 deg) while the identical program under
-    x64 falls at 825 ms. The deployable path is f32 on TPU (matmul
-    precision pinned HIGHEST since round 3); gating quality on the
+    (CPU roll_max 7.9 deg) while the identical program under x64 falls at
+    825 ms. The deployable path is f32 on the accelerator (matmul
+    precision pinned to full f32); gating quality on the
     non-product f64 semantics made the gate flip with the host machine."""
     old = jax.config.jax_enable_x64
     jax.config.update("jax_enable_x64", False)

@@ -98,3 +98,17 @@ def test_solve_ik_same_solution_both_paths(setup):
         np.asarray(res_fast.xs), np.asarray(res_oracle.xs), atol=1e-8
     )
     np.testing.assert_allclose(float(res_fast.cost), float(res_oracle.cost), rtol=1e-10)
+
+
+def test_dense_weights_match_residual_fns(setup):
+    """dense_weights (the native twin's weight layout) reproduces
+    build_residual_fns' per-row weights."""
+    model, eff, tasks, x, _ = setup
+    stage, term, ctrl_w_ref = IK.build_residual_fns(model, eff, tasks)
+    w_stage, w_term, ctrl_w, _ = IK.dense_weights(model, eff, tasks)
+    for k in range(tasks.dts.shape[0]):
+        _, w_k = stage(x, k)
+        np.testing.assert_allclose(np.asarray(w_stage[k]), np.asarray(w_k), rtol=1e-6)
+    _, w_t = term(x)
+    np.testing.assert_allclose(np.asarray(w_term), np.asarray(w_t), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(ctrl_w), np.asarray(ctrl_w_ref), rtol=1e-6)

@@ -1,4 +1,4 @@
-"""End-to-end MPC tests — the TPU twin of the reference's canonical
+"""End-to-end MPC tests — the JAX twin of the reference's canonical
 "does the whole stack run" check (reference
 examples/iterative_algorithm/test_mpc.py:1-100), plus quantitative physics
 assertions the reference never had.

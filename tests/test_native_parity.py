@@ -110,7 +110,7 @@ def test_admm_solve_parity(problem):
         np.asarray(res.F), Fn.reshape(H, NE, 3), atol=5e-2
     )
 
-    # the power-iteration TPU mode reaches the same solution
+    # the power-iteration (hot path) mode reaches the same solution
     res2 = biconvex.solve(
         plan,
         M,

@@ -1,7 +1,7 @@
 """Closed-form SE(3) Jacobians (utils/quat.py) vs autodiff of the chart maps.
 
-These blocks feed the Pallas DDP kernel (no autodiff inside Pallas), so their
-correctness is what makes the in-kernel Riccati exact."""
+These closed-form blocks are what an autodiff-free Riccati (a fused DDP
+kernel) is built from, so their correctness is what would make it exact."""
 
 import jax
 import jax.numpy as jnp
